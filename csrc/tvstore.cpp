@@ -2,7 +2,7 @@
 //
 // The reference delegates persistence to the bundled SQLite C library
 // (shadow tables under WAL journaling, /root/reference/src/shadow.rs).
-// tpuvec's authoritative state lives in HBM; persistence is an explicit
+// tpuvec's authoritative state lives in device memory; persistence is an explicit
 // snapshot of named n-d arrays. This engine provides the native runtime
 // path for that: a single-file columnar format written with buffered IO
 // and read back zero-copy via mmap, with per-section CRC32C integrity

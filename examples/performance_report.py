@@ -5,7 +5,6 @@ requirement is ~170 vec/s insert and ~2.8 ms/query at recall > 0.95)."""
 import time
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 
 from tpuvec.index import HnswParams, bruteforce_knn
@@ -14,10 +13,11 @@ from tpuvec.index.graph import config_for, prepare_vectors
 from tpuvec.index.search import search_graph
 from tpuvec.types import DistanceMetric
 from tpuvec.utils.data import synthetic_embeddings
+from tpuvec.utils.safecache import configure_compilation_cache
 
 
 def main() -> None:
-    jax.config.update("jax_compilation_cache_dir", "/tmp/tpuvec_jax_cache")
+    configure_compilation_cache()
     n, d, k, qn = 25_000, 384, 10, 256
     data = synthetic_embeddings(n + qn, d, seed=0)
     x, q = data[:n], data[n:]

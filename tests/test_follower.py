@@ -90,7 +90,7 @@ def test_second_os_process_reads_snapshot(tmp_path):
     env["JAX_PLATFORMS"] = "cpu"
     out = subprocess.run(
         [sys.executable, "-c", code],
-        capture_output=True, text=True, timeout=600, env=env, cwd="/tmp",
+        capture_output=True, text=True, timeout=600, env=env, cwd=str(tmp_path),
     )
     assert out.returncode == 0, out.stderr[-2000:]
     lines = out.stdout.strip().splitlines()

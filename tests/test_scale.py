@@ -9,8 +9,8 @@ the 1-core CI box, so it is opt-in:
 
     TPUVEC_SCALE_TEST=1 python -m pytest tests/test_scale.py -q
 
-(The 100K/1M tiers run on real TPU via scripts/probe_build_rate.py and
-bench.py — see BENCH_CONFIGS.md for measured rates.)
+(The 100K tier runs on the GPU in chip_smoke.py, which prints its build
+time.)
 """
 
 import os

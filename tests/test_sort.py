@@ -115,9 +115,8 @@ def test_bitonic_smallest(rng, width, k):
 
 @pytest.mark.parametrize("ef,w", [(16, 64), (64, 64), (128, 48)])
 def test_merge_impls_identical(rng, ef, w):
-    """The xor (XLA) and roll (Mosaic) compare-exchange implementations
-    must produce bit-identical merges — the Pallas kernel uses roll, the
-    XLA search loop uses xor, and parity tests compare across them."""
+    """The xor and roll compare-exchange implementations must produce
+    bit-identical merges."""
     from tpuvec.ops.sort import bitonic_topk_merge_sorted
 
     bd = np.sort(rng.standard_normal((4, ef)).astype(np.float32), axis=1)

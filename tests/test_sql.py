@@ -6,6 +6,7 @@ coverage (src/sql_functions.rs)."""
 import json
 import sqlite3
 
+import jax
 import numpy as np
 import pytest
 
@@ -57,6 +58,7 @@ class TestScalarFunctions:
         assert F.vec_version().startswith("tpuvec ")
         info = json.loads(F.vec_debug())
         assert "backend" in info
+        assert info["device_kind"] == jax.devices()[0].device_kind
 
     def test_register_on_stdlib_sqlite(self):
         conn = sqlite3.connect(":memory:")

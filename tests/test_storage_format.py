@@ -1,4 +1,4 @@
-"""Storage byte accounting — the TPU analogue of the reference's
+"""Storage byte accounting — the device-resident analogue of the reference's
 tests/test_storage_format.rs (shadow-table size breakdown) and the
 north-star "equal memory" constraint (BASELINE.md).
 
@@ -6,7 +6,7 @@ The reference measures bytes/vector through SQLite's dbstat (10,309
 B/vec at 768D f32, M=32 ef_c=400 — PARITY_STATUS.md:35-54). Here the
 authoritative store is the device SoA (index/graph.py) and the
 persistence tier is the snapshot file (store/snapshot.py), so the
-accounting covers both: per-slot HBM cost of every graph array, and
+accounting covers both: per-slot device cost of every graph array, and
 on-disk snapshot bytes per vector.
 """
 
@@ -30,7 +30,7 @@ PARAMS = HnswParams(m=16, max_m0=32, ef_construction=64, ef_search=64)
 
 
 def _graph_bytes_per_slot(vc):
-    """Per-slot HBM cost of the device graph arrays (full-capacity cost:
+    """Per-slot cost of the device graph arrays (full-capacity cost:
     fair against the reference's per-row dbstat numbers because every
     slot is usable)."""
     st = vc.state

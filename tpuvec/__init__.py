@@ -1,10 +1,10 @@
-"""tpuvec — a TPU-native vector index-and-query framework.
+"""tpuvec — a device-resident vector index-and-query framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 brianmacy/sqlite-vec-hnsw (a SQLite ``vec0`` virtual table with persistent
 HNSW indexing; see /root/reference). The reference's shadow-table store
-becomes a device-resident columnar store in HBM; its simsimd SIMD distance
-kernels become batched MXU/VPU kernels; its pointer-chasing HNSW becomes
+becomes a device-resident columnar store; its simsimd SIMD distance
+kernels become batched matmul-form kernels; its pointer-chasing HNSW becomes
 fixed-iteration batched beam search over padded adjacency arrays; the
 brute-force fallback becomes tiled matmul + top-k; partition keys map to
 mesh shards with all-gather top-k merge.
@@ -17,7 +17,7 @@ Public surface:
     tpuvec.index      -- HnswIndex (build/search/delete/rebuild) + brute force
     tpuvec.store      -- VecTable columnar store + snapshot/restore
     tpuvec.sql        -- vec0 SQL dialect: Database, vec_* scalar functions
-    tpuvec.parallel   -- partitioned/sharded indexes over a TPU mesh
+    tpuvec.parallel   -- partitioned/sharded indexes over a device mesh
 """
 
 from tpuvec.types import (

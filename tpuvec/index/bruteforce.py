@@ -1,8 +1,8 @@
 """Exact (ENN) brute-force KNN: tiled matmul + chunked top-k merge.
 
-TPU-native replacement for the reference's row-at-a-time scan
+Batched replacement for the reference's row-at-a-time scan
 (brute_force_search, src/vtab.rs:2573-2623): distances for a whole
-[B queries x chunk] tile come off the MXU at once, and the running top-k
+[B queries x chunk] tile come out of one matmul, and the running top-k
 is merged per chunk with masked lax.top_k. Doubles as the ground-truth
 oracle for HNSW recall tests (the reference computes its ground truth the
 same way in-test, tests/test_recall_accuracy.rs).
@@ -54,14 +54,14 @@ def bruteforce_knn_internal(
     filtering in one dispatch (multi-tenant serving: B queries, each its
     own partition): row n is eligible for query b iff
     slot_codes[n] == q_codes[b]. The [B, chunk] mask is computed in-kernel
-    against the distance tile the MXU already produced, so the filtered
+    against the distance tile the matmul already produced, so the filtered
     batch costs the same as the unfiltered one — vs the reference, which
     parses PARTITION KEY but never filters at all (src/vtab.rs:2479-2480).
     """
     b, _ = q.shape
     n = x.shape[0]
     if metric is DistanceMetric.HAMMING:
-        # MXU +-1 path: per-chunk footprint is the int8 expansion
+        # +-1 matmul path: per-chunk footprint is the int8 expansion
         # [chunk, 32*W] plus the [B, chunk] output — bound it to ~512 MB
         per_row = max(32 * x.shape[-1] + b * 4, 1)
         chunk = min(chunk, max(_ceil_to((512 << 20) // per_row, 128), 128))

@@ -1,6 +1,6 @@
-"""Device-resident HNSW graph state: structure-of-arrays in HBM.
+"""Device-resident HNSW graph state: structure-of-arrays in device memory.
 
-TPU-native replacement for the reference's SQLite shadow tables
+Device-resident replacement for the reference's SQLite shadow tables
 (_hnsw_nodes / _hnsw_edges / _hnsw_meta, src/shadow.rs:192-257): instead of
 point queries against a page cache, the whole graph lives as padded,
 fixed-degree arrays that batched kernels gather from.
@@ -21,12 +21,12 @@ Layout (cap = node capacity, Dp = dim padded to a lane multiple):
   upper_adj   i32 [cap_u, LU*M]   adjacency at levels 1..LU (level l at
   upper_dist  f32 [cap_u, LU*M]   columns [(l-1)*M, l*M) — flattened 2D:
                                   XLA pads a [cap_u, LU, M] layout's minor
-                                  dims to (8,128) tiles, 8x the HBM)
+                                  dims to tiles, multiplying the bytes)
   entry_point / entry_level / count / upper_count   scalars
 
 Only ~1/M of nodes have level >= 1, so the upper graph is stored compactly
 (cap_u = cap/8 slots by default) and is small enough that construction-time
-neighbor selection on upper levels is done *exactly* with an MXU matmul
+neighbor selection on upper levels is done *exactly* with a matmul
 over all upper nodes instead of graph traversal.
 """
 
@@ -115,9 +115,9 @@ def config_for(
     if vec_type is VectorType.BIT or quantization is IndexQuantization.BINARY:
         # packed uint32 words
         padded = _ceil_to(max(dim, 1), 32) // 32
-        # sublane-align only: HBM layouts are dense, so padding packed
-        # words to full 128-lane width would 4x the store (5.1 GB vs
-        # 1.3 GB at 10M x 1024 bits) for zero gather/VPU benefit
+        # align to 8 words only: device layouts are dense, so padding packed
+        # words to a multiple of 128 would 4x the store (5.1 GB vs
+        # 1.3 GB at 10M x 1024 bits) for zero gather benefit
         padded = _ceil_to(padded, 8)
     elif vec_type is VectorType.INT8 or quantization is IndexQuantization.INT8:
         padded = _ceil_to(dim, 128)

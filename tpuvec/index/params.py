@@ -31,7 +31,7 @@ class HnswParams:
     rng_seed: int = 0x5EED
     # iteration budget for the *construction* candidate beam; None derives
     # it from ef_construction (search.default_max_iters). The build beam is
-    # the dominant cost of insert (gather-bound, ROUND_NOTES), and capping
+    # a large share of insert, and capping
     # its straggler tail trades a little candidate quality for build rate —
     # the same iters-vs-recall trade measured for search (bench.py sweep).
     build_max_iters: int | None = None

@@ -1,6 +1,6 @@
 """Batched HNSW search: greedy upper-level descent + level-0 beam.
 
-TPU-native recast of the reference's search_hnsw / search_layer
+Batched recast of the reference's search_hnsw / search_layer
 (src/hnsw/search.rs:267-533). The reference walks the graph one node at a
 time, issuing a cached SQLite statement per edge-list fetch and 1-64 point
 queries per neighbor batch; here a whole batch of queries advances in
@@ -8,18 +8,17 @@ lock-step inside one jit region:
 
 * the candidate/result heaps (search.rs:192-250) become one fixed-width
   sorted beam buffer [B, EF] merged by O(S^2) rank computation
-  (rank_topk_merge_sorted, tpuvec/ops/sort.py) — lax.top_k / lax.sort
-  cost ~450 us per merge on v5e at these shapes and even the bitonic
-  network's 28 dependent compare-exchange stages lowered to a 271 us
-  fusion; the rank merge is two big parallel compare/select-reduces
-  with no sequential stages;
+  (rank_topk_merge_sorted, tpuvec/ops/sort.py): two big parallel
+  compare/select-reduces with no sequential stages, in place of
+  lax.top_k / lax.sort or a bitonic network's 28 dependent
+  compare-exchange stages;
 * the HybridVisited set (search.rs:19-52) is GONE: because the beam only
   ever improves, an evicted node can never re-qualify, so membership in
   the current beam is a complete visited test. Dedup is a chunked
-  equality sweep against the beam — no scatter (measured 467 us/iter) and
-  no [B, cap] state at all;
+  equality sweep against the beam — no scatter and no [B, cap] state at
+  all;
 * the per-node FFI fetches become two XLA gathers (adjacency row, then
-  neighbor vectors) + one fused distance einsum (~60 us/iter);
+  neighbor vectors) + one fused distance einsum;
 * the data-dependent traversal loop becomes a lax.while_loop with a
   static trip bound (`max_iters`) and per-query active masks.
 
@@ -171,7 +170,6 @@ def beam_search_level0(
     ef: int,
     max_iters: int,
     n_expand: int = 1,
-    use_pallas: bool = False,
     node_mask: jnp.ndarray | None = None,
     k_out: int = 10,
     merge: str = "rank",
@@ -314,51 +312,6 @@ def beam_search_level0(
             nsel, nactive, jnp.any(nactive), it + 1,
         )
 
-    if use_pallas and not use_mask:
-        # fused kernel path: dedup + merge + next-frontier in one VMEM
-        # kernel (tpuvec/ops/pallas_beam.py); adjacency/vector gathers and
-        # the distance einsum stay in XLA where they are already fast
-        from tpuvec.ops.pallas_beam import beam_update
-
-        interpret = jax.default_backend() != "tpu"
-
-        def compact(sel, bi):
-            selrank = jnp.cumsum(sel.astype(jnp.int32), axis=1)
-            cand = jnp.full((b, e), -1, dtype=jnp.int32)
-            for j in range(e):
-                mask_j = jnp.logical_and(sel, selrank == j + 1)
-                pos_j = jnp.argmax(mask_j, axis=1)
-                has_j = jnp.any(mask_j, axis=1)
-                cid = jnp.take_along_axis(bi, pos_j[:, None], 1)[:, 0]
-                cand = cand.at[:, j].set(jnp.where(has_j, cid, -1))
-            return cand
-
-        def body_p(carry):
-            beam_d, beam_i, beam_x, cand, active, _, it = carry
-            ok = jnp.logical_and(cand >= 0, active[:, None])
-            nbrs = state.adj0[jnp.maximum(cand, 0)]
-            nbrs = jnp.where(ok[:, :, None], nbrs, -1).reshape(b, w_raw)
-            nd = _node_dist(config, state, q, nbrs)
-            beam_d, beam_i, beam_x, cand, active = beam_update(
-                beam_d, beam_i, beam_x, nbrs, nd,
-                n_expand=e, interpret=interpret,
-            )
-            return beam_d, beam_i, beam_x, cand, active, jnp.any(active), it + 1
-
-        def cond_p(carry):
-            *_, alive, it = carry
-            return jnp.logical_and(alive, it < max_iters)
-
-        sel0, active0 = frontier(beam_d, beam_i, beam_x)
-        cand0 = compact(sel0, beam_i)
-        beam_x = jnp.logical_or(beam_x, sel0)
-        beam_d, beam_i, beam_x, _, _, _, iters = jax.lax.while_loop(
-            cond_p,
-            body_p,
-            (beam_d, beam_i, beam_x, cand0, active0, jnp.any(active0), jnp.int32(0)),
-        )
-        return beam_d, beam_i, iters
-
     sel0, active0 = frontier(beam_d, beam_i, beam_x)
     if use_mask:
         carry = (
@@ -401,7 +354,7 @@ def default_max_iters(ef: int, n_expand: int) -> int:
 
 @partial(
     jax.jit,
-    static_argnames=("config", "k", "ef", "max_iters", "n_expand", "use_pallas"),
+    static_argnames=("config", "k", "ef", "max_iters", "n_expand"),
 )
 def search_graph(
     config: HnswConfig,
@@ -412,7 +365,6 @@ def search_graph(
     ef: int | None = None,
     max_iters: int | None = None,
     n_expand: int = 1,
-    use_pallas: bool = False,
     filter_mask: jnp.ndarray | None = None,
 ):
     """Batched k-NN over the graph in *internal* distance space.
@@ -436,7 +388,6 @@ def search_graph(
         ef=ef,
         max_iters=max_iters,
         n_expand=n_expand,
-        use_pallas=use_pallas,
         node_mask=filter_mask,
         k_out=k,
     )

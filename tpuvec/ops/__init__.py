@@ -1,4 +1,4 @@
-"""Batched TPU distance / top-k kernels (jnp reference forms + Pallas)."""
+"""Batched distance / top-k / rerank operations (plain jnp, compiled by XLA)."""
 
 from tpuvec.ops.distance import (
     cosine_pairwise,

@@ -1,10 +1,10 @@
-"""Batched distance kernels (jnp; XLA fuses these onto MXU/VPU).
+"""Batched distance kernels (plain jnp; XLA fuses and lowers them).
 
-TPU-native replacement for the reference's per-pair simsimd dispatch
+Batched replacement for the reference's per-pair simsimd dispatch
 (src/distance/mod.rs:52-84, src/distance/scalar.rs). Instead of one
 (a, b) -> scalar call per graph edge, every op here is batched:
 
-* ``*_pairwise(q, x)``: [B, D] x [N, D] -> [B, N]  (MXU matmul forms)
+* ``*_pairwise(q, x)``: [B, D] x [N, D] -> [B, N]  (matmul forms)
 * ``gathered_*(q, nbrs)``: [B, D] x [B, M, D] -> [B, M]  (beam-search form)
 
 Distance semantics match the reference:
@@ -19,7 +19,7 @@ vectors as squared L2, converted on output as cos = L2^2/2 — the
 reference's trick, src/hnsw/mod.rs:129-146). ``internal_to_output``
 converts internal values to user-facing ones.
 
-int8 inputs accumulate exactly in int32 on the MXU (simsimd's i8 kernels
+int8 inputs accumulate exactly in int32 (simsimd's i8 kernels
 do the same in SIMD registers) before converting to f32.
 """
 
@@ -45,9 +45,9 @@ __all__ = [
 
 _F32 = jnp.float32
 
-# f32 dots run at HIGHEST precision (3-pass bf16 on the MXU) so distance
-# rankings match the reference's f32 SIMD kernels; TPU default (1-pass bf16)
-# would introduce ~1e-3 relative error, enough to reorder near-ties.
+# f32 dots run at HIGHEST precision (full f32, not TF32 or bf16 passes) so
+# distance rankings match the reference's f32 SIMD kernels; a reduced
+# default (~1e-3 relative error) is enough to reorder near-ties.
 _PRECISION = jax.lax.Precision.HIGHEST
 
 
@@ -121,12 +121,11 @@ def unpack_pm1(w: jnp.ndarray) -> jnp.ndarray:
 def hamming_pairwise(qw: jnp.ndarray, xw: jnp.ndarray) -> jnp.ndarray:
     """Hamming over packed uint32 words: [B, W] x [N, W] -> [B, N] (f32).
 
-    Runs on the MXU via the +-1 expansion: for s = 2*bit - 1,
+    Runs as a matmul via the +-1 expansion: for s = 2*bit - 1,
     s_a . s_b = Dp - 2*hamming(a, b), so one int8 matmul with exact int32
     accumulation replaces the [B, N, W] XOR+popcount broadcast cube
     (identical counts: zero pad bits agree on both sides and cancel).
-    Measured ~30x on the v5e upper-pool scan that serialized the 10M
-    binary build (reference kernel: src/distance/scalar.rs:102-112).
+    Reference kernel: src/distance/scalar.rs:102-112.
     """
     dp = qw.shape[-1] * 32
     sq = unpack_pm1(qw)

@@ -150,9 +150,8 @@ def expand_rerank_topk(
     the beam ranks in the quantized space: a true neighbor just outside
     the coarse top-C is usually *adjacent* to one inside it, so reranking
     C*(M0+1) expanded candidates in exact space recovers it without the
-    O(ef) cost of a deeper beam (measured round 3, 1M x 1024 binary:
-    C=64 coarse 0.68 -> expanded 0.95+ at a fraction of the C=192 beam
-    cost). Composition the reference never had: its rerank-free binary
+    O(ef) cost of a deeper beam (recall at 1M x 1024 binary: C=64 coarse
+    0.68 -> expanded 0.95+). Composition the reference never had: its rerank-free binary
     path stops at the Hamming ranking (src/vector.rs:579-608).
 
     Duplicates inside the expansion (shared neighbors) are removed during

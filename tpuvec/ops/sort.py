@@ -1,22 +1,17 @@
 """Bitonic networks over the last axis.
 
-``lax.top_k`` / ``lax.sort`` lower to slow generic sorts on TPU for the
-beam-merge shapes we care about (~450 us per [256, 384] merge measured
-in-loop on v5e). A bitonic network from static shuffles + select compiles
-to VPU ops and works under jit, inside Pallas kernels, and on CPU.
+Fixed-width selection built from static shuffles + selects: it works under
+jit at any batch shape, on every backend, with no data-dependent control
+flow. Whether ``lax.top_k`` / ``lax.sort`` are faster on a given device at
+the beam-merge shapes is an open measurement (ROADMAP).
 
-Three compare-exchange implementations (``impl=``), measured by ablation
-on v5e at the beam-merge shape [256, 16+64] (the merge dominates a whole
-beam-search iteration: ~260 us of 360 us):
+Two compare-exchange implementations (``impl=``):
 
 * ``"roll"`` (default): static lane rolls as concat-of-two-slices +
-  select. Works under XLA, Mosaic, and CPU. 260 us.
+  select.
 * ``"xor"``: partner fetch ``x[i ^ j]`` as ONE [.., g, 2, j] reshape +
-  ``lax.rev`` per array. Sounds cheaper (half the shuffles) but XLA's
-  rev/reshape lowering measured SLOWER: 306 us. Kept for reference.
-* ``"proll"``: ``pltpu.roll`` hardware lane rotates — Pallas kernels
-  only (one vector instruction per shuffle instead of a materialized
-  concat).
+  ``lax.rev`` per array. Half the shuffles; kept as the cross-check of
+  ``"roll"`` (tests/test_sort.py requires bit-identical merges).
 
 Value lanes ride through the network packed: callers with an (id, flag)
 pair use pack_iv/unpack_iv to carry ONE int32 payload instead of two.
@@ -28,8 +23,8 @@ Two cost tiers:
 * ``bitonic_topk_merge_sorted`` — merge an already-sorted beam with a
   block of new candidates. Only the new block pays the full sort; the
   combined sequence is (ascending ++ descending) = bitonic, so one split
-  stage + O(log L) merge stages finish the job. This is the beam-search
-  hot path.
+  stage + O(log L) merge stages finish the job. The construction beam
+  merges this way (index/build.py); search uses rank_topk_merge_sorted.
 
 All lengths must be powers of two (pad with +inf keys).
 """
@@ -64,12 +59,8 @@ def _next_pow2(x: int) -> int:
 
 
 def _roll(x: jnp.ndarray, shift: int) -> jnp.ndarray:
-    """Static roll along the last axis (shift > 0 rolls right).
-
-    Written as concat of two static slices: supported by XLA, Mosaic,
-    and the Pallas interpreter alike (jnp.roll lowers to the same thing
-    but via lax.rev on some paths, which Mosaic rejects).
-    """
+    """Static roll along the last axis (shift > 0 rolls right), as a
+    concat of two static slices."""
     n = x.shape[-1]
     s = shift % n
     if s == 0:
@@ -78,25 +69,9 @@ def _roll(x: jnp.ndarray, shift: int) -> jnp.ndarray:
 
 
 def _lane_iota(ndim: int, length: int) -> jnp.ndarray:
-    """[1, ..., 1, L] int32 iota along the last axis.
-
-    Built inside the trace (not a numpy constant): Pallas kernels reject
-    captured array constants, and Mosaic has native iota support.
-    """
-    import jax
-
+    """[1, ..., 1, L] int32 iota along the last axis."""
     shape = (1,) * max(ndim - 1, 1) + (length,)
     return jax.lax.broadcasted_iota(jnp.int32, shape, len(shape) - 1)
-
-
-def _sel(pred, a, b):
-    """where(pred, a, b) that avoids bool-valued select (Mosaic rejects
-    selects whose *operands* are booleans; logical form lowers fine)."""
-    if a.dtype == jnp.bool_:
-        return jnp.logical_or(
-            jnp.logical_and(pred, a), jnp.logical_and(jnp.logical_not(pred), b)
-        )
-    return jnp.where(pred, a, b)
 
 
 def _xor_partner(x: jnp.ndarray, j: int) -> jnp.ndarray:
@@ -124,19 +99,12 @@ def _stage(
 
     impl: see module docstring.
     """
-    if impl == "proll":
-        from jax.experimental.pallas import tpu as pltpu
-
-        def roll(x, s):
-            return pltpu.roll(x, s % x.shape[-1], axis=x.ndim - 1)
-    else:
-        roll = _roll
 
     def partner(x):
         if impl == "xor":
             return _xor_partner(x, j)
         # partner value: x[i + j] for lo positions, x[i - j] for hi ones
-        return _sel(is_lo, roll(x, -j), roll(x, j))
+        return jnp.where(is_lo, _roll(x, -j), _roll(x, j))
 
     kp = partner(keys)
     take = jnp.logical_or(
@@ -144,7 +112,7 @@ def _stage(
         jnp.logical_and(jnp.logical_not(want_small), kp > keys),
     )
     keys = jnp.where(take, kp, keys)
-    new_vals = [_sel(take, partner(v), v) for v in vals]
+    new_vals = [jnp.where(take, partner(v), v) for v in vals]
     return keys, new_vals
 
 
@@ -160,9 +128,6 @@ def bitonic_sort(
     """
     length = keys.shape[-1]
     assert length & (length - 1) == 0, f"L={length} must be a power of two"
-    # bool values ride as int32 (Mosaic rejects concatenate/roll on bools)
-    was_bool = [v.dtype == jnp.bool_ for v in vals]
-    vals = [v.astype(jnp.int32) if b else v for v, b in zip(vals, was_bool)]
     iota = _lane_iota(keys.ndim, length)
     k = 2
     while k <= length:
@@ -178,7 +143,6 @@ def bitonic_sort(
             keys, vals = _stage(keys, vals, j, is_lo, want_small, impl)
             j //= 2
         k *= 2
-    vals = [v.astype(jnp.bool_) if b else v for v, b in zip(vals, was_bool)]
     return (keys, *vals)
 
 
@@ -226,7 +190,7 @@ def bitonic_topk_merge_sorted(
         new_d = jnp.pad(new_d, pad, constant_values=jnp.inf)
         new_p = jnp.pad(new_p, pad, constant_values=0)  # id -1, unexpanded
     # descending sort: +inf padding lands at the front, so a further
-    # front-pad below keeps the block descending (no lax.rev — Mosaic)
+    # front-pad below keeps the block descending (no lax.rev needed)
     nd, np_ = bitonic_sort(new_d, new_p, descending=True, impl=impl)
 
     s = max(ef, wp)
@@ -263,15 +227,13 @@ def rank_topk_merge_sorted(
     """Merge beam + candidate window by O(S^2) rank computation.
 
     Same contract as bitonic_topk_merge_sorted (and stable, so equal keys
-    keep beam-then-window order), but with ZERO sequential stages: the
-    profiler showed the bitonic network lowering to one 271 us fusion per
-    beam iteration (28 dependent compare-exchange stages of cross-lane
-    shuffles) while the whole gather+distance step costs ~100 us. Here
-    every element's output position is its rank in the union — one
+    keep beam-then-window order), but with ZERO sequential stages (the
+    bitonic network is 28 dependent compare-exchange stages of cross-lane
+    shuffles at the search shape). Here every element's output position is its rank in the union — one
     [S, S] compare-reduce (S = EF + W, ~80: tiny, embarrassingly
     parallel) — and placement is a one-hot select-reduce instead of a
-    scatter. O(S^2) beats O(S log^2 S) on the VPU because all the work
-    sits in two big fusable reductions with no dependency chain.
+    scatter. All the work sits in two big fusable reductions with no
+    dependency chain.
     """
     ef = beam_d.shape[-1]
     d = jnp.concatenate([beam_d, new_d], axis=-1)  # [., S]
@@ -322,8 +284,8 @@ def bitonic_smallest(d: jnp.ndarray, *vals: jnp.ndarray, k: int, impl: str = "ro
     """Smallest-k along the last axis via one bitonic sort + slice.
 
     d [..., L] (L any width; padded to a power of two with +inf), vals
-    follow. Returns (d [..., k] ascending, vals...). Replaces lax.top_k,
-    which lowers to a slow generic sort on TPU at these shapes.
+    follow. Returns (d [..., k] ascending, vals...). Stands in for
+    lax.top_k (see the module docstring).
     """
     w = d.shape[-1]
     wp = _next_pow2(w)

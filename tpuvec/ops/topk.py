@@ -1,16 +1,13 @@
 """Top-k-smallest selection utilities.
 
 Replaces the reference's binary heaps (src/hnsw/search.rs:192-250) with
-fixed-width selection networks — the TPU-native primitive (no
-data-dependent heap ops under jit).
+fixed-width selection networks (no data-dependent heap ops under jit).
 
-``lax.top_k`` lowers to a slow generic sort on TPU (~1.6 ms per
-[256, 16K] chunk measured on v5e — 60% of the whole ENN scan), so wide
-selections run as a GROUP-WISE BITONIC CASCADE instead: split the width
-into pow-2 groups, bitonic-sort each group and keep its smallest
-next_pow2(k) (the global top-k is always inside the union of per-group
-top-k), then shrink recursively until one bitonic finishes the job.
-Every stage is static reshapes + rolls + selects on the VPU.
+Wide selections run as a GROUP-WISE BITONIC CASCADE in place of
+``lax.top_k``: split the width into pow-2 groups, bitonic-sort each group
+and keep its smallest next_pow2(k) (the global top-k is always inside the
+union of per-group top-k), then shrink recursively until one bitonic
+finishes the job. Every stage is static reshapes + rolls + selects.
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
-"""Corpus sharding over a TPU mesh.
+"""Corpus sharding over a device mesh.
 
 The reference is single-node: its only sharding concepts are partition keys
 (parsed but unimplemented, src/vtab.rs:854-859 + README.md:467) and
 thread-per-connection WAL concurrency (tests/test_multithread_stress.rs).
-The TPU-native scale-out axis is the device mesh:
+Here the scale-out axis is the device mesh:
 
 * every device holds an independent HNSW sub-index over its slice of the
   corpus (GraphState leaves stacked with a leading shard dim, laid out with
@@ -14,7 +14,8 @@ The TPU-native scale-out axis is the device mesh:
   every device builds its sub-graph in the same SPMD program;
 * queries replicate across the mesh, each shard runs the batched beam
   search locally, and the per-shard top-k merge is a single jnp.top_k over
-  the shard axis — XLA lowers the re-layout to an all-gather over ICI.
+  the shard axis — XLA lowers the re-layout to an all-gather, which
+  runs as an NCCL collective over NVLink between the cards of one host.
 
 Local slot ids map to global ids as shard * cap + slot.
 """
@@ -102,7 +103,7 @@ def _sharded_search(
         out_specs=P("shard"),
         check_vma=False,  # while_loop carries are legitimately unvarying
     )(*args)
-    # d, gi: [S, B, k] -> merge over shards (XLA all-gathers over ICI)
+    # d, gi: [S, B, k] -> merge over shards (XLA all-gathers via NCCL)
     s, b, _ = d.shape
     d_all = jnp.transpose(d, (1, 0, 2)).reshape(b, s * k)
     i_all = jnp.transpose(gi, (1, 0, 2)).reshape(b, s * k)

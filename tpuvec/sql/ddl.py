@@ -12,7 +12,7 @@ Grammar parity with the reference's parse_create_args + extract_hnsw_clause
 * metadata:        label TEXT (or bare name -> TEXT)
 * table options:   type=hnsw|enn (src/vtab.rs:738-750); chunk_size=N is
                    accepted and ignored (legacy knob); capacity=N
-                   (TPU-specific) pre-sizes the device arrays so the jit
+                   (device-specific) pre-sizes the device arrays so the jit
                    programs never recompile on growth — the analogue of
                    the reference's page-size tuning advice
                    (src/vtab.rs:160-216).

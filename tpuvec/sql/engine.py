@@ -1,8 +1,8 @@
-"""Database facade: the reference's SQL surface over TPU-backed tables.
+"""Database facade: the reference's SQL surface over device-backed tables.
 
 The reference is a loadable SQLite extension: scalar functions + a `vec0`
 virtual-table module (src/lib.rs:26-34, src/vtab.rs:123-145). The stdlib
-``sqlite3`` module cannot host virtual tables, so the TPU-native equivalent
+``sqlite3`` module cannot host virtual tables, so the device-backed equivalent
 is a hybrid engine:
 
 * a real in-process SQLite connection carries all ordinary SQL, with every
@@ -750,7 +750,7 @@ class Database:
     # -- composability fallback: run arbitrary SQL via a SQLite mirror -- #
     # The reference composes with the WHOLE SQLite planner because vec0
     # is a virtual table inside SQLite (joins/subqueries/aggregates all
-    # work, src/vtab.rs:964-1028, 2341-2482). The TPU engine recovers the
+    # work, src/vtab.rs:964-1028, 2341-2482). The device engine recovers the
     # same surface by materializing vec0 tables into the in-process
     # SQLite connection: KNN (`col MATCH ? AND k = ?`) still executes on
     # the device and its (rowid, distance) rows become the mirror, then

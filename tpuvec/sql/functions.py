@@ -176,6 +176,7 @@ def vec_debug() -> str:
         {
             "version": __version__,
             "backend": jax.default_backend(),
+            "device_kind": jax.devices()[0].device_kind,
             "devices": [str(d) for d in jax.devices()],
         }
     )

@@ -3,7 +3,7 @@
 The reference's multi-process story is several OS processes sharing one
 SQLite file under WAL — readers always see the last committed state and
 the write lock serializes writers (tests/test_multithread_stress.rs:
-53-106; refresh_entry_point src/hnsw/mod.rs:394-424). The TPU-native
+53-106; refresh_entry_point src/hnsw/mod.rs:394-424). The device-resident
 equivalent splits the roles:
 
 * the WRITER process owns the device state and publishes committed rows

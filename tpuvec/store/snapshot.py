@@ -3,7 +3,7 @@
 The reference's checkpoint story is "the SQLite file IS the checkpoint"
 (shadow tables persist nodes/edges/meta, src/shadow.rs:192-257; resume =
 reopen, tests/test_disk_persistence.rs). Here the authoritative state
-lives in HBM, so persistence is an explicit snapshot: device arrays are
+lives in device memory, so persistence is an explicit snapshot: device arrays are
 pulled to host and written as one .npz archive plus a JSON schema record;
 restore is a jax.device_put of the arrays.
 

@@ -4,13 +4,14 @@ jax's LRUCache.put writes entries with a bare ``Path.write_bytes``
 (jax/_src/lru_cache.py) — NOT atomic. A process killed mid-write (driver
 timeout, Ctrl-C, crash) leaves a truncated zstd entry, and every later
 process that reads that key SEGFAULTS inside executable deserialization
-(observed twice on this box: fatal crash in
+(observed: fatal crash in
 ``compilation_cache.get_executable_and_time``). This module monkeypatches
 ``put`` to write to a same-directory temp file and ``os.replace`` it into
 place, which makes interrupted writers harmless.
 
-Call ``enable_atomic_cache_writes()`` before the first jit compilation in
-any process that sets ``jax_compilation_cache_dir``.
+Entry points call ``configure_compilation_cache()`` before their first
+jit compilation: it picks the cache directory and turns on the atomic
+writes.
 """
 
 from __future__ import annotations
@@ -19,6 +20,35 @@ import os
 import tempfile
 
 _patched = False
+
+# fixed cache root inside the checkout (listed in .gitignore): the path is
+# part of how the cache is found again, so it never comes from a temp
+# name, a pid or the clock
+_CHECKOUT = os.path.dirname(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+)
+CACHE_ROOT = os.path.join(_CHECKOUT, ".jax_cache")
+
+
+def compilation_cache_dir(name: str = "device") -> str:
+    """JAX_COMPILATION_CACHE_DIR when it is set, else ``.jax_cache/<name>``
+    in the checkout (the tests use their own ``name``)."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or os.path.join(
+        CACHE_ROOT, name
+    )
+
+
+def configure_compilation_cache(name: str = "device") -> str:
+    """Point jax's persistent compilation cache at
+    ``compilation_cache_dir(name)``, cache every program that takes over a
+    second to compile, and make cache writes atomic. Returns the directory."""
+    import jax
+
+    path = compilation_cache_dir(name)
+    jax.config.update("jax_compilation_cache_dir", path)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    enable_atomic_cache_writes()
+    return path
 
 
 def enable_atomic_cache_writes() -> None:

@@ -91,9 +91,9 @@ def print_stats() -> None:
 
 
 @contextlib.contextmanager
-def trace(path: str = "/tmp/tpuvec_trace"):
+def trace(path: str):
     """Device-level profiling via jax.profiler (view with tensorboard /
-    xprof). The TPU analogue of the reference's samply workflow
+    xprof). The device analogue of the reference's samply workflow
     (examples/bench_standalone.rs)."""
     import jax
 
